@@ -1,6 +1,6 @@
 """Command-line driver: the reference's ``BaMMmotif`` pipeline.
 
-TPU-native equivalent of ``src/main.cpp`` + ``src/Global/Global.cpp``:
+JAX equivalent of ``src/main.cpp`` + ``src/Global/Global.cpp``:
 parse reference-compatible flags, load sequence sets, build/load the
 background model, fan out seeds, refine (EM and/or CGS — all seeds of a
 width group in one batched program instead of OpenMP threads), write model
@@ -39,7 +39,7 @@ from bammmotif2_tpu.utils.fasta import read_fasta
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="bammmotif2-tpu",
-        description="TPU-native Bayesian Markov Model motif discovery "
+        description="Bayesian Markov Model motif discovery in JAX "
         "(BaMMmotif2-compatible)",
     )
     p.add_argument("outputDirectory")
@@ -106,9 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--savePvalues", action="store_true")
     p.add_argument("--saveLogOdds", action="store_true")
     p.add_argument("--verbose", action="store_true")
-    # TPU-native extensions
+    # extensions (absent in the reference)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--no-pallas", dest="use_pallas", action="store_false", default=True)
     p.add_argument(
         "--single-device", dest="multiDevice", action="store_false", default=True
     )
@@ -288,8 +287,8 @@ def _pipeline_stages(params, mesh, metrics, alphabet, basename,
                 bg_fit, pos_set.lens, m_fold=max(params.mFold, 1),
                 seed=params.seed,
             )
-        # motifs of equal (W, K) scan in ONE seed-stacked kernel pass per
-        # chunk (scan.score_set_multi) — the stacked form of the reference
+        # motifs of equal (W, K) scan in ONE seed-stacked pass per chunk
+        # (scan.score_set_multi) — the stacked form of the reference
         # driver's per-motif ScoreSeqSet loop
         scan_groups: dict = {}
         for m in motifs:
@@ -360,21 +359,28 @@ def _pipeline_stages(params, mesh, metrics, alphabet, basename,
     return out
 
 
+# the checkout's own persistent compile cache (git-ignored); a fixed path,
+# because the cache directory is part of what a later run must find again
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
+
+def compilation_cache_dir() -> str:
+    """The persistent XLA compile cache directory this process uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or CACHE_DIR
+
+
 def _enable_compilation_cache() -> None:
-    """Persistent XLA compilation cache: TPU compiles are 20-40 s each and a
-    full --EM --FDR --scoreSeqset pipeline traces ~10 distinct shapes, so
-    repeat runs on the same input sizes start hot."""
+    """Persistent XLA compilation cache: a full --EM --FDR --scoreSeqset
+    pipeline compiles ~10 distinct programs, so repeat runs on the same
+    input sizes start hot.  JAX reads ``JAX_COMPILATION_CACHE_DIR`` itself;
+    only without it does the cache go to the checkout's ``.jax_cache``."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
     import jax
 
-    cache_dir = os.environ.get(
-        "BAMM_XLA_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "bammmotif2_tpu_xla"),
-    )
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # older jax without the knobs
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
 
 
 def _estimate_n_seeds(params: Params) -> int:
@@ -383,7 +389,7 @@ def _estimate_n_seeds(params: Params) -> int:
     Sizing the axis by --maxPWM alone either over-pads (maxPWM larger
     than the file) — replicated model rows and a starved data axis — or
     never engages seed parallelism (no --maxPWM with a multi-motif PWM
-    file).  A textual peek costs nothing next to a TPU compile.
+    file).  A textual peek costs nothing next to a compile.
     """
     n = 1
     try:

@@ -36,9 +36,8 @@ def thinned_rank_rows(pp, nn, rows_d, n_neg: int):
         tp(r) = #pos > s_r + clip(r + 1 - #pool > s_r, 0, #pos == s_r)
         fp(r) = (r + 1) - tp(r)
     Needs only VALUE sorts plus searchsorted on the thinned rows — the
-    argsort form paid two full-pool gathers (~0.65 s each per 42M on a
-    v5e) and searchsorted with full-pool queries (~17 s per 42M: XLA
-    lowers it to a per-query binary-search loop).  Ranks stay int32 ON
+    argsort form pays two full-pool gathers, and searchsorted with
+    full-pool queries runs one binary search per pooled window.  Ranks stay int32 ON
     DEVICE (exact; caller guards pool < 2^31); the f64 sweep math runs
     on the host from the fetched integer ranks — f32 ranks would
     quantize past 2^24 pooled windows.  Pads (-inf) sit below any real

@@ -1,6 +1,6 @@
 """Artificial sequence generation with on-device PRNG.
 
-TPU-native equivalent of ``src/seq_generator/SeqGenerator.{h,cpp}``:
+JAX equivalent of ``src/seq_generator/SeqGenerator.{h,cpp}``:
 negatives for FDR / p-value calibration are sampled from a homogeneous
 Markov model of order ``--sOrder`` (default 2) fit to the positive set, at
 ``--mFold`` times the positive count; motif-embedded sets support

@@ -4,7 +4,7 @@
 // Native-runtime counterpart of the reference's C++ data loader
 // (src/init/SequenceSet.{h,cpp} / Sequence.{h,cpp}): the reference parses
 // FASTA into per-sequence C++ objects; here the target layout is the padded
-// device tensor consumed by the JAX/Pallas kernels, produced in one pass
+// device tensor consumed by the JAX programs, produced in one pass
 // over the raw bytes.  Exposed as a tiny C ABI consumed via ctypes
 // (bammmotif2_tpu/io/native.py); the pure-numpy parser in utils/fasta.py is
 // the behavioral reference and fallback.

@@ -1,6 +1,6 @@
 """Homogeneous background Markov model.
 
-TPU-native equivalent of ``src/init/BackgroundModel.{h,cpp}``: counts all
+JAX equivalent of ``src/init/BackgroundModel.{h,cpp}``: counts all
 k-mers (k <= K_bg + 1) over a sequence set with one device-side bincount of
 the combined k-mer index tensor, then applies the interpolated pseudo-count
 recurrence with a single strength A (SURVEY.md 2.9):

@@ -1,6 +1,6 @@
 """Inhomogeneous Bayesian Markov motif model (the BaMM).
 
-TPU-native equivalent of ``src/init/Motif.{h,cpp}``.  State per motif
+JAX equivalent of ``src/init/Motif.{h,cpp}``.  State per motif
 position j = 0..W-1 and order k = 0..K:
 
     v[k] : conditional probs, shape [|A|^(k+1), W]   (lexicographic k-mers,

@@ -1,9 +1,9 @@
 """MotifSet: fan-out from the chosen seed source to a list of Motifs.
 
-TPU-native equivalent of ``src/init/MotifSet.{h,cpp}``: one Motif per seed,
+JAX equivalent of ``src/init/MotifSet.{h,cpp}``: one Motif per seed,
 capped by --maxPWM, with optional --extend padding using background
-frequencies.  Downstream refinement vmaps/loops over the set (the TPU
-analogue of the reference's OpenMP-over-motifs driver loop).
+frequencies.  Downstream refinement batches the set (the device analogue of the
+reference's OpenMP-over-motifs driver loop).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Seed motif initialization: PWM/MEME files, IUPAC patterns, binding sites.
 
-TPU-native equivalent of ``Motif::initFromPWM`` / ``initFromBindingSites``
+JAX equivalent of ``Motif::initFromPWM`` / ``initFromBindingSites``
 and the MEME/PEnG ``.meme`` seed reader consumed via ``--PWMFile``
 (SURVEY.md 2: MotifSet loads N seeds from the chosen init source).
 """

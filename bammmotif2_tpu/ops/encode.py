@@ -1,7 +1,7 @@
 """k-mer index tensors: the device-side sequence representation.
 
-Core idea (TPU-first; no analogue in the reference, which recomputes k-mer
-indices per position in C++ loops — ``Sequence::extractKmer`` inside
+Core idea (no analogue in the reference, which recomputes k-mer indices
+per position in C++ loops — ``Sequence::extractKmer`` inside
 ``EM::EStep`` / ``ScoreSeqSet::score``):
 
 Every conditional-probability table of every order k <= K is stored in ONE
@@ -15,8 +15,7 @@ code (oldest base most significant).  A single precomputed index tensor
     cidx[n, t] = off[m(t)] + kmer_code_{m(t)}(n, t)     (int32)
 
 where m(t) = min(t, K, #consecutive unambiguous bases ending just before t)
-turns window scoring into a pure gather (or one-hot matmul) against the
-combined LUT, and the EM M-step into the transposed scatter on the same
+turns window scoring into a pure gather against the combined LUT, and the EM M-step into the transposed scatter on the same
 index.  Sequence-start and ambiguous-base context truncation fall out
 naturally: truncated positions simply index a lower-order block.  Invalid
 positions (ambiguous current base, padding) index the trailing sentinel row
@@ -107,59 +106,6 @@ def combined_kmer_index_np(codes: np.ndarray, A: int, K: int) -> np.ndarray:
     return _combined_kmer_index_impl(np.asarray(codes), A, K, np)
 
 
-@functools.partial(jax.jit, static_argnames=("A", "K"))
-def base5_kmer_index(codes: jnp.ndarray, A: int, K: int) -> jnp.ndarray:
-    """qidx[n, t]: (A+1)-ary code of the K+1 bases ending at t.
-
-    Digit d (weight (A+1)^d) is the base at t-d; the extra symbol ``A``
-    stands for "no base" (ambiguous, or before the sequence start).  This
-    is the index into the Kronecker one-hot space used by the matmul
-    formulation of scoring: every combined-LUT row is reachable as
-    ``map_base5_to_combined(A, K)[qidx]`` (== combined_kmer_index), but
-    qidx itself is expressible as a product of per-position one-hots, which
-    turns gather/scatter into MXU matmuls (ops.pallas_em).
-    """
-    codes = codes.astype(jnp.int32)
-    N, L = codes.shape
-    B = A + 1
-    sym = jnp.where(codes >= 0, codes, A)
-    out = sym
-    for d in range(1, K + 1):
-        shifted = jnp.concatenate(
-            [jnp.full((N, d), A, jnp.int32), sym[:, : L - d]], axis=1
-        )
-        out = out + shifted * (B ** d)
-    return out
-
-
-def map_base5_to_combined(A: int, K: int) -> np.ndarray:
-    """Static lookup [ (A+1)^(K+1) ] -> combined-LUT row in [0, R].
-
-    Implements the order-truncation rule of ``combined_kmer_index`` in the
-    base-5 code space: current base invalid -> sentinel row R; otherwise the
-    effective order m is the longest run of valid context digits, and the
-    row is off[m] + lexicographic code of the (m+1)-mer.
-    """
-    B = A + 1
-    Q = B ** (K + 1)
-    off = order_offsets(A, K)
-    R = int(off[-1])
-    out = np.empty(Q, np.int32)
-    for c in range(Q):
-        digits = [(c // B ** d) % B for d in range(K + 1)]  # digit d = base at t-d
-        if digits[0] == A:
-            out[c] = R
-            continue
-        m = 0
-        while m < K and digits[m + 1] != A:
-            m += 1
-        y = 0
-        for d in range(m, -1, -1):
-            y = y * A + digits[d]
-        out[c] = off[m] + y
-    return out
-
-
 def comp_table(alphabet) -> np.ndarray:
     """int8 complement lookup table for an Alphabet (letter i -> index of
     its complement letter) — the one shared construction for every
@@ -245,10 +191,3 @@ def strand_indices(sset: SequenceSet, K: int, ss: bool):
     strands = _strand_codes(sset, ss)
     cidx = _stack_combined(tuple(strands), A, K)
     return cidx, jnp.asarray(sset.lens)
-
-
-def strand_base5_indices(sset: SequenceSet, K: int, ss: bool) -> jnp.ndarray:
-    """Per-strand base-(A+1) k-mer codes, [S, N, L] (see base5_kmer_index)."""
-    A = sset.alphabet.size
-    strands = _strand_codes(sset, ss)
-    return jnp.stack([base5_kmer_index(c, A, K) for c in strands])

@@ -16,9 +16,9 @@ combined k-mer index tensor (see ``bammmotif2_tpu.ops.encode``):
   - ``mstep_counts``: the transposed op — scatter window responsibilities
     into combined count rows, one segment-sum per motif offset j.
 
-A fused Pallas kernel for the whole EM iteration lives in
-``bammmotif2_tpu.ops.pallas_em``; these XLA ops are the reference
-implementation and the fallback path.
+These ops are the one data path of EM, CGS, FDR and scanning on every
+backend.  ``ops.reference`` re-derives the same quantities in float64
+numpy, independently of this module, for the parity tests.
 """
 
 from __future__ import annotations

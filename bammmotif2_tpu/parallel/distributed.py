@@ -1,13 +1,13 @@
 """Multi-host bring-up: jax.distributed + automatic mesh construction.
 
 The reference has no distributed runtime (single-process OpenMP,
-SURVEY.md 2.1).  Here multi-host is first-class: on a TPU pod slice every
-host runs the same CLI command; ``initialize()`` wires the JAX
-coordination service (autodetected on Cloud TPU, or explicit via
-JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID), after which
-``jax.devices()`` spans the whole slice and the ('data', 'seed') mesh in
-``parallel.mesh`` shards sequences across hosts with the count all-reduce
-riding ICI.
+SURVEY.md 2.1).  Here multi-host is first-class: every host runs the same
+CLI command; ``initialize()`` wires the JAX coordination service from
+JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, after which
+``jax.devices()`` spans every host's GPUs and the ('data', 'seed') mesh in
+``parallel.mesh`` shards sequences across them with one count all-reduce
+per EM iteration (NCCL on GPUs).  On one host with several GPUs no
+launch variables are needed: one process drives all of its devices.
 
 Input sharding: each host loads the full FASTA (host RAM is not the
 bottleneck for <=100k sequences) and lays down only its addressable shards
@@ -47,12 +47,9 @@ def initialize(force: bool = False) -> bool:
     if not (force or (coord and nproc)):
         return False  # single-process launch: don't touch the backends
     if not _initialized:
-        try:
-            # cross-process collectives on the CPU backend (virtual-device
-            # tests, CPU fallbacks) need gloo; harmless for TPU backends
-            jax.config.update("jax_cpu_collectives_implementation", "gloo")
-        except Exception:
-            pass  # older jax without the knob
+        # cross-process collectives on the CPU backend (the multi-process
+        # tests) need gloo; GPU collectives are unaffected
+        jax.config.update("jax_cpu_collectives_implementation", "gloo")
         kwargs = {}
         if coord:
             kwargs = dict(
@@ -60,10 +57,8 @@ def initialize(force: bool = False) -> bool:
                 num_processes=int(nproc),
                 process_id=int(os.environ.get("JAX_PROCESS_ID", "0")),
             )
-        try:
+        if not jax.distributed.is_initialized():  # a launcher may have
             jax.distributed.initialize(**kwargs)
-        except RuntimeError:
-            pass  # already initialized (e.g. by the launcher)
         _initialized = True
     return jax.process_count() > 1
 

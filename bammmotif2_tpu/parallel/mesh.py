@@ -1,14 +1,13 @@
 """Device-mesh sharding for multi-chip / multi-host scaling.
 
-The reference is a single-process OpenMP tool (SURVEY.md 2.1); scaling here
-is TPU-native by construction (BASELINE.json): the sequence set is sharded
-over a ``data`` mesh axis, the (tiny) motif + background models are
-replicated, and the one collective per EM iteration is the all-reduce of
-the combined count tensor — inserted automatically by GSPMD because the
-segment-sum reduces over the sharded sequence axis.  A second ``seed``
-axis shards independent seed motifs (the TPU analogue of the reference's
-OpenMP-over-motifs driver loop, done with vmap + sharding instead of
-threads).
+The reference is a single-process OpenMP tool (SURVEY.md 2.1); here the
+sequence set is sharded over a ``data`` mesh axis, the (tiny) motif +
+background models are replicated, and the one collective per EM iteration
+is the all-reduce of the combined count tensor — inserted automatically by
+GSPMD because the segment-sum reduces over the sharded sequence axis.  A
+second ``seed`` axis shards independent seed motifs (the device analogue
+of the reference's OpenMP-over-motifs driver loop, done with sharding
+instead of threads).
 
 Multi-host entry: call ``jax.distributed.initialize()`` before building the
 mesh; everything below is host-count agnostic.

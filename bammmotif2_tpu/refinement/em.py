@@ -1,20 +1,15 @@
 """ZOOPS EM refinement — the hot loop.
 
-TPU-native equivalent of ``src/refinement/EM.{h,cpp}`` (``EM::optimize``,
+JAX equivalent of ``src/refinement/EM.{h,cpp}`` (``EM::optimize``,
 ``EStep``, ``MStep``, ``optimizeQ``).  One EM iteration is ONE jitted XLA
-program over device-resident tensors:
+program over device-resident tensors, built from the gather/segment-sum
+ops of ``ops.escore`` (any order, any alphabet):
 
     E: rebuild the [R+1, W] log-odds LUT (cheap), window scores, log-space
        ZOOPS posterior
     M: fractional combined count rows, marginalize to per-order counts,
        apply the interpolated pseudo-count estimator
        (models.motif.update_v), optionally update q
-
-Two data paths produce identical counts/likelihood:
-  * ``ops.escore``  — gather/segment-sum XLA ops (any order; CPU-friendly);
-  * ``ops.pallas_em`` — fused single-sweep Pallas TPU kernel (K <= 5 at
-    A=4 via the hi/lo digit split; gated by ``pallas_em.supported``): the
-    one-hot lives in VMEM and both E and M are MXU matmuls.
 
 Only two scalars (log-likelihood, |delta v|) return to the host per
 iteration; convergence is |delta v| < epsilon with a --maxEMIterations cap,
@@ -97,8 +92,7 @@ def prepare_data(sset: SequenceSet, bg: BackgroundModel, K: int, ss: bool) -> di
     """One-time device tensorization for EM/scanning.
 
     Returns a dict pytree:
-      cidx [S, N, L] combined-LUT rows (gather AND pallas_em paths — the
-        kernel one-hots directly in combined-row space)
+      cidx [S, N, L] combined-LUT rows
       lens [N], bg_flat [R]
 
     The (cidx, lens) tensors memoize per SequenceSet instance and (K, ss):
@@ -122,7 +116,7 @@ def prepare_data(sset: SequenceSet, bg: BackgroundModel, K: int, ss: bool) -> di
 
 
 @functools.partial(
-    jax.jit, static_argnames=("A", "K", "W", "optimize_q", "path", "mesh")
+    jax.jit, static_argnames=("A", "K", "W", "optimize_q")
 )
 def em_step(
     v: tuple,
@@ -136,8 +130,6 @@ def em_step(
     K: int,
     W: int,
     optimize_q: bool,
-    path: str = "gather",
-    mesh=None,
 ):
     """One fused EM iteration. Returns (v_new, q_new, ll, v_diff).
 
@@ -147,52 +139,15 @@ def em_step(
     1 to the q denominator — both are corrected here so sharded and
     unsharded runs agree.
 
-    ``path``: 'gather' (XLA, any K), 'pallas' (fused TPU kernel — K <= 5
-    at A=4, gated by ``pallas_em.supported``), 'pallas_shard' (the kernel
-    per data-axis shard inside shard_map, with an explicit psum count
-    merge — requires ``mesh``), or the '*_interpret' variants
-    ('pallas_interpret', 'pallas_shard_interpret' — kernel correctness
-    mode on CPU).  The retired flat-layout kernel (round-3 A/B loser)
-    lives in tools/pallas_flat.py with its own tests and is no longer
-    dispatchable here.
+    Sharded data (parallel.mesh.shard_em_data) partitions through GSPMD,
+    which inserts the one count all-reduce.
     """
     R = encode.num_rows(A, K)
     lens = data["lens"]
     s_flat = motif_mod.log_odds_lut(v, data["bg_flat"])
-    if path.startswith("pallas_shard"):
-        from jax.sharding import PartitionSpec as P
-
-        from bammmotif2_tpu.ops import pallas_em
-
-        shard_map = jax.shard_map
-
-        interp = path.endswith("interpret")
-
-        def per_shard(cidx_s, lens_s, q_s, s_flat_s):
-            C, ll = pallas_em.em_counts(
-                s_flat_s, cidx_s, lens_s, q_s,
-                A=A, K=K, W=W, R=R, interpret=interp,
-            )
-            return jax.lax.psum(C, "data"), jax.lax.psum(ll, "data")
-
-        C, ll = shard_map(
-            per_shard,
-            mesh=mesh,
-            in_specs=(P(None, "data", None), P("data"), P(), P()),
-            out_specs=(P(), P()),
-            check_vma=False,  # pallas_call outs carry no vma annotation
-        )(data["cidx"], lens, q, s_flat)
-    elif path.startswith("pallas"):
-        from bammmotif2_tpu.ops import pallas_em
-
-        C, ll = pallas_em.em_counts(
-            s_flat, data["cidx"], lens, q,
-            A=A, K=K, W=W, R=R, interpret=path == "pallas_interpret",
-        )
-    else:
-        scores, mask = escore.window_scores(s_flat, data["cidx"], lens, W)
-        r, _r0, ll = escore.zoops_posterior(scores, mask, q)
-        C = escore.mstep_counts(r, data["cidx"], R, W)
+    scores, mask = escore.window_scores(s_flat, data["cidx"], lens, W)
+    r, _r0, ll = escore.zoops_posterior(scores, mask, q)
+    C = escore.mstep_counts(r, data["cidx"], R, W)
     counts = motif_mod.counts_from_combined(C[:R], A, K)
     v_new = motif_mod.update_v(counts, alphas, f_bg)
     if optimize_q:
@@ -214,7 +169,7 @@ def em_step(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("A", "K", "W", "optimize_q", "path", "max_iters", "mesh"),
+    static_argnames=("A", "K", "W", "optimize_q", "max_iters"),
 )
 def em_optimize(
     v: tuple,
@@ -230,9 +185,7 @@ def em_optimize(
     K: int,
     W: int,
     optimize_q: bool,
-    path: str,
     max_iters: int,
-    mesh=None,
 ):
     """Whole EM convergence loop as ONE device program (lax.while_loop).
 
@@ -258,7 +211,7 @@ def em_optimize(
         v, q, ll_prev, vd, it = state
         v2, q2, ll, vd2 = em_step(
             v, q, data, alphas, f_bg, n_real,
-            A=A, K=K, W=W, optimize_q=optimize_q, path=path, mesh=mesh,
+            A=A, K=K, W=W, optimize_q=optimize_q,
         )
         # fold the dll criterion into the carried v_diff: once either
         # signal is under epsilon we report a value < epsilon and stop
@@ -269,21 +222,6 @@ def em_optimize(
     state = (v, q, jnp.asarray(ll0, jnp.float32), jnp.float32(jnp.inf), jnp.int32(0))
     v, q, ll, vd, it = jax.lax.while_loop(cond, body, state)
     return v, q, ll, vd, it
-
-
-def choose_path(params: Params, K: int, sharded: bool = False, A: int = 4) -> str:
-    """Pick the fastest correct data path for this run.
-
-    ``sharded``: GSPMD cannot auto-partition pallas_call, so sharded runs
-    use 'pallas_shard' — the kernel per data shard inside shard_map with
-    an explicit psum count merge.
-    """
-    if params.use_pallas and jax.default_backend() == "tpu":
-        from bammmotif2_tpu.ops import pallas_em
-
-        if pallas_em.supported(K, A):
-            return "pallas_shard" if sharded else "pallas"
-    return "gather"
 
 
 def run_em(
@@ -338,13 +276,10 @@ def run_em(
 
         v, q, alphas, f_bg = mesh_mod.replicate(mesh, (v, q, alphas, f_bg))
 
-    path = choose_path(params, K, sharded=mesh is not None, A=A)
     ll_hist: list = []
     nr = jnp.asarray(n_real, jnp.float32)
     eps = jnp.float32(params.epsilon)
-    statics = dict(
-        A=A, K=K, W=W, optimize_q=params.optimizeQ, path=path, mesh=mesh
-    )
+    statics = dict(A=A, K=K, W=W, optimize_q=params.optimizeQ)
     compile_seconds = 0.0
     seconds = 0.0
 

@@ -1,6 +1,6 @@
 """Collapsed Gibbs sampling refinement with pseudo-count (alpha) learning.
 
-TPU-native equivalent of ``src/refinement/GibbsSampling.{h,cpp}``
+JAX equivalent of ``src/refinement/GibbsSampling.{h,cpp}``
 (``GibbsSampling::optimize``, ``CollapsedGibbsSampling``, ``updateAlphas``).
 
 Deviation (documented, SURVEY.md 3.4): the reference resamples z_n
@@ -33,18 +33,16 @@ Per iteration:
      alphas, a deliberate resume semantic.  (The exact reference prior
      could not be verified against the empty mount.)
 
-Burn-in (TPU-native extension, --cgsBurnIn N): with N > 0 the first N
+Burn-in (extension, --cgsBurnIn N): with N > 0 the first N
 sweeps are discarded and the final model is the Rao-Blackwellized
 posterior mean — v estimated from counts AVERAGED over the post-burn-in
 sweeps — instead of the last sweep's state.  Default 0 keeps the
 reference's final-sweep behavior.
 
-Multi-chip: pass a mesh — sequences shard over the 'data' axis; the
-gather path partitions through GSPMD, the fused Pallas kernel runs per
-shard inside shard_map with an explicit psum count merge
-('pallas_shard', mirroring refinement.em).  run_gibbs_multi batches all
-seeds of a (W, K) group into ONE device program (the reference's
-OpenMP-over-motifs, cf. refinement.multi).
+Multi-chip: pass a mesh — sequences shard over the 'data' axis and the
+sweep partitions through GSPMD (mirroring refinement.em).
+run_gibbs_multi batches all seeds of a (W, K) group into ONE device
+program (the reference's OpenMP-over-motifs, cf. refinement.multi).
 """
 
 from __future__ import annotations
@@ -61,7 +59,7 @@ from bammmotif2_tpu.models import motif as motif_mod
 from bammmotif2_tpu.models.background import BackgroundModel
 from bammmotif2_tpu.models.motif import Motif
 from bammmotif2_tpu.ops import encode, escore
-from bammmotif2_tpu.refinement.em import _aot_compile, choose_path, prepare_data
+from bammmotif2_tpu.refinement.em import _aot_compile, prepare_data
 from bammmotif2_tpu.utils.config import Params
 from bammmotif2_tpu.utils.fasta import SequenceSet
 
@@ -119,9 +117,7 @@ def _log_alpha_posterior(log_alphas, counts, f_bg, default_alphas):
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "A", "K", "W", "sample_z", "sample_q", "learn_alpha", "path", "mesh"
-    ),
+    static_argnames=("A", "K", "W", "sample_z", "sample_q", "learn_alpha"),
 )
 def gibbs_step(
     v: tuple,
@@ -139,9 +135,7 @@ def gibbs_step(
     sample_z: bool,
     sample_q: bool,
     learn_alpha: bool,
-    path: str = "gather",
     alpha_lr: float = 0.05,
-    mesh=None,
 ):
     """One batch-synchronous CGS sweep.
 
@@ -152,35 +146,7 @@ def gibbs_step(
     cidx, lens, bg_flat = data["cidx"], data["lens"], data["bg_flat"]
     R = encode.num_rows(A, K)
     s_flat = motif_mod.log_odds_lut(v, bg_flat)
-    if path.startswith("pallas_shard"):
-        from jax.sharding import PartitionSpec as P
-
-        from bammmotif2_tpu.ops import pallas_em
-
-        interp = path.endswith("interpret")
-
-        def score_shard(cidx_s, lens_s, s_flat_r):
-            return pallas_em.window_scores(
-                s_flat_r, cidx_s, lens_s,
-                A=A, K=K, W=W, interpret=interp,
-            )
-
-        scores, mask = jax.shard_map(
-            score_shard,
-            mesh=mesh,
-            in_specs=(P(None, "data", None), P("data"), P()),
-            out_specs=(P(None, "data", None), P("data")),
-            check_vma=False,  # pallas_call outs carry no vma annotation
-        )(data["cidx"], lens, s_flat)
-    elif path.startswith("pallas"):
-        from bammmotif2_tpu.ops import pallas_em
-
-        scores, mask = pallas_em.window_scores(
-            s_flat, data["cidx"], lens,
-            A=A, K=K, W=W, interpret=path == "pallas_interpret",
-        )
-    else:
-        scores, mask = escore.window_scores(s_flat, cidx, lens, W)
+    scores, mask = escore.window_scores(s_flat, cidx, lens, W)
     S, N, n_win = scores.shape
 
     n_win_per_seq = S * mask.sum(axis=1)
@@ -207,45 +173,11 @@ def gibbs_step(
         z = jnp.argmax(flat, axis=-1)
     occupied = z > 0
     zi = z - 1  # flattened (s, i)
-    # one-hot via broadcast compare — arbitrary-index scatter serializes on
-    # TPU (~300 ms for 10k updates); the compare is a single vector op
+    # hard responsibilities: a one-hot of the sampled window per sequence
     cols = jnp.arange(S * n_win, dtype=zi.dtype)[None, :]
     r = ((cols == zi[:, None]) & occupied[:, None]).astype(jnp.float32)
     r = jnp.moveaxis(r.reshape(N, S, n_win), 1, 0)  # [S, N, n_win]
-
-    if path.startswith("pallas_shard"):
-        from jax.sharding import PartitionSpec as P
-
-        from bammmotif2_tpu.ops import pallas_em
-
-        L = cidx.shape[2]
-        r_snl = jnp.pad(r, ((0, 0), (0, 0), (0, L - n_win)))
-
-        def count_shard(r_s, cidx_s):
-            C = pallas_em.counts_from_r(
-                r_s, cidx_s,
-                A=A, K=K, W=W, R=R, interpret=interp,
-            )
-            return jax.lax.psum(C, "data")
-
-        C = jax.shard_map(
-            count_shard,
-            mesh=mesh,
-            in_specs=(P(None, "data", None), P(None, "data", None)),
-            out_specs=P(),
-            check_vma=False,
-        )(r_snl, data["cidx"])
-    elif path.startswith("pallas"):
-        from bammmotif2_tpu.ops import pallas_em
-
-        L = cidx.shape[2]
-        r_snl = jnp.pad(r, ((0, 0), (0, 0), (0, L - n_win)))
-        C = pallas_em.counts_from_r(
-            r_snl, data["cidx"],
-            A=A, K=K, W=W, R=R, interpret=path == "pallas_interpret",
-        )
-    else:
-        C = escore.mstep_counts(r, cidx, R, W)
+    C = escore.mstep_counts(r, cidx, R, W)
     counts = motif_mod.counts_from_combined(C[:R], A, K)
 
     n_occ = occupied.sum()
@@ -276,9 +208,7 @@ def gibbs_step(
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "A", "K", "W", "sample_z", "sample_q", "learn_alpha", "path", "mesh"
-    ),
+    static_argnames=("A", "K", "W", "sample_z", "sample_q", "learn_alpha"),
 )
 def gibbs_step_multi(
     v: tuple,
@@ -296,18 +226,12 @@ def gibbs_step_multi(
     sample_z: bool,
     sample_q: bool,
     learn_alpha: bool,
-    path: str = "gather",
     alpha_lr: float = 0.05,
-    mesh=None,
 ):
     """One batch-synchronous CGS sweep for M seeds at once.
 
-    Seed-stacked analogue of gibbs_step: scoring and counting go through
-    ONE Pallas kernel for all M seeds (window_scores_multi /
-    counts_from_r_multi — the seed LUTs/responsibility planes ride the
-    matmul output rows, every seed shares each one-hot; cf.
-    pallas_em.em_counts_multi), while the per-seed sampling and model
-    math vmap over the seed axis in plain XLA.  Key handling per seed is
+    Seed-stacked analogue of gibbs_step: scoring, sampling, counting and
+    the model math vmap over the seed axis.  Key handling per seed is
     IDENTICAL to gibbs_step's (split → fold_in(n) → categorical →
     split → beta), so member m of a batched run reproduces
     run_gibbs(..., key=keys[m]) exactly.
@@ -318,41 +242,13 @@ def gibbs_step_multi(
     """
     cidx, lens, bg_flat = data["cidx"], data["lens"], data["bg_flat"]
     R = encode.num_rows(A, K)
-    M = q.shape[0]
     s_flat = jax.vmap(lambda vm: motif_mod.log_odds_lut(vm, bg_flat))(v)
 
-    # ---- stage 1: window scores, all seeds in one kernel ---------------
-    if path.startswith("pallas_shard"):
-        from jax.sharding import PartitionSpec as P
-
-        from bammmotif2_tpu.ops import pallas_em
-
-        interp = path.endswith("interpret")
-
-        def score_shard(cidx_s, lens_s, s_flat_r):
-            return pallas_em.window_scores_multi(
-                s_flat_r, cidx_s, lens_s, A=A, K=K, W=W, interpret=interp
-            )
-
-        scores, mask = jax.shard_map(
-            score_shard,
-            mesh=mesh,
-            in_specs=(P(None, "data", None), P("data"), P()),
-            out_specs=(P(None, None, "data", None), P("data")),
-            check_vma=False,
-        )(cidx, lens, s_flat)
-    elif path.startswith("pallas"):
-        from bammmotif2_tpu.ops import pallas_em
-
-        scores, mask = pallas_em.window_scores_multi(
-            s_flat, cidx, lens,
-            A=A, K=K, W=W, interpret=path == "pallas_interpret",
-        )
-    else:
-        scores, mask = jax.vmap(
-            lambda sf: escore.window_scores(sf, cidx, lens, W)
-        )(s_flat)
-        mask = mask[0]
+    # ---- stage 1: window scores, all seeds ------------------------------
+    scores, mask = jax.vmap(
+        lambda sf: escore.window_scores(sf, cidx, lens, W)
+    )(s_flat)
+    mask = mask[0]
     _Mm, S, N, n_win = scores.shape
 
     # ---- stage 2: per-seed z/q sampling (vmapped pure XLA) -------------
@@ -397,38 +293,8 @@ def gibbs_step_multi(
 
     r, n_occ, q_new, keys, ll = jax.vmap(sample_one)(scores, q, keys)
 
-    # ---- stage 3: counts, all seeds in one kernel ----------------------
-    L = cidx.shape[2]
-    if path.startswith("pallas_shard"):
-        from jax.sharding import PartitionSpec as P
-
-        from bammmotif2_tpu.ops import pallas_em
-
-        r_msnl = jnp.pad(r, ((0, 0), (0, 0), (0, 0), (0, L - n_win)))
-
-        def count_shard(r_s, cidx_s):
-            C = pallas_em.counts_from_r_multi(
-                r_s, cidx_s, A=A, K=K, W=W, R=R, interpret=interp
-            )
-            return jax.lax.psum(C, "data")
-
-        C = jax.shard_map(
-            count_shard,
-            mesh=mesh,
-            in_specs=(P(None, None, "data", None), P(None, "data", None)),
-            out_specs=P(),
-            check_vma=False,
-        )(r_msnl, cidx)
-    elif path.startswith("pallas"):
-        from bammmotif2_tpu.ops import pallas_em
-
-        r_msnl = jnp.pad(r, ((0, 0), (0, 0), (0, 0), (0, L - n_win)))
-        C = pallas_em.counts_from_r_multi(
-            r_msnl, cidx, A=A, K=K, W=W, R=R,
-            interpret=path == "pallas_interpret",
-        )
-    else:
-        C = jax.vmap(lambda rm: escore.mstep_counts(rm, cidx, R, W))(r)
+    # ---- stage 3: counts, all seeds -------------------------------------
+    C = jax.vmap(lambda rm: escore.mstep_counts(rm, cidx, R, W))(r)
     counts = jax.vmap(
         lambda Cm: motif_mod.counts_from_combined(Cm[:R], A, K)
     )(C)
@@ -449,8 +315,8 @@ def gibbs_step_multi(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "A", "K", "W", "sample_z", "sample_q", "learn_alpha", "path",
-        "n_iters", "burn_in", "mesh",
+        "A", "K", "W", "sample_z", "sample_q", "learn_alpha", "n_iters",
+        "burn_in",
     ),
 )
 def gibbs_optimize(
@@ -469,10 +335,8 @@ def gibbs_optimize(
     sample_z: bool,
     sample_q: bool,
     learn_alpha: bool,
-    path: str,
     n_iters: int,
     burn_in: int = 0,
-    mesh=None,
 ):
     """Whole CGS run as one device program (lax.scan over sweeps).
 
@@ -486,7 +350,7 @@ def gibbs_optimize(
         v, q, la, key, ll, n_occ, counts = gibbs_step(
             v, q, la, key, data, f_bg, default_alphas, n_real,
             A=A, K=K, W=W, sample_z=sample_z, sample_q=sample_q,
-            learn_alpha=learn_alpha, path=path, mesh=mesh,
+            learn_alpha=learn_alpha,
         )
         take = (i >= burn_in).astype(jnp.float32)
         acc = tuple(a + take * c for a, c in zip(acc, counts))
@@ -552,7 +416,6 @@ def run_gibbs(
 
     n_iters = params.maxCGSIterations
     burn_in = min(getattr(params, "cgsBurnIn", 0), max(n_iters - 1, 0))
-    path = choose_path(params, K, sharded=mesh is not None, A=A)
     args = (
         v, q, log_alphas, key, data, f_bg, default_alphas,
         jnp.asarray(n_real, jnp.float32),
@@ -562,7 +425,7 @@ def run_gibbs(
         sample_z=not params.noZSampling,
         sample_q=not params.noQSampling,
         learn_alpha=not params.noAlphaOptimization,
-        path=path, n_iters=n_iters, burn_in=burn_in, mesh=mesh,
+        n_iters=n_iters, burn_in=burn_in,
     )
     compiled, compile_seconds = _aot_compile(gibbs_optimize, args, statics)
     t0 = time.perf_counter()
@@ -590,14 +453,11 @@ def run_gibbs(
 @functools.lru_cache(maxsize=64)
 def _batched_gibbs_loop(
     A: int, K: int, W: int, M: int, sample_z: bool, sample_q: bool,
-    learn_alpha: bool, path: str, n_iters: int, burn_in: int, mesh=None,
+    learn_alpha: bool, n_iters: int, burn_in: int,
 ):
     """Batched CGS over the seed axis: all M seeds of a (W, K) group sweep
-    inside ONE lax.scan program via gibbs_step_multi — scoring and
-    counting are seed-stacked single Pallas kernels (the LUTs ride the
-    matmul output rows, one shared one-hot per sequence row); sampling
-    and model math vmap over seeds.  Compiles once per (W, K) group
-    regardless of M (the round-3 per-seed unroll compiled M copies).
+    inside ONE lax.scan program via gibbs_step_multi, which vmaps every
+    stage over seeds.  Compiles once per (W, K, M) group.
 
     lru_cached by static configuration so repeat calls reuse the compiled
     closure.  Sequences may shard over a mesh 'data' axis; the seed axis
@@ -616,7 +476,7 @@ def _batched_gibbs_loop(
             v2, q2, la2, keys2, lls, noccs, counts = gibbs_step_multi(
                 v, q, la, keys, data, f_bg, da, n_real,
                 A=A, K=K, W=W, sample_z=sample_z, sample_q=sample_q,
-                learn_alpha=learn_alpha, path=path, mesh=mesh,
+                learn_alpha=learn_alpha,
             )
             take = (i >= burn_in).astype(jnp.float32)
             acc = tuple(a + take * c for a, c in zip(acc, counts))
@@ -641,7 +501,7 @@ def run_gibbs_multi(
 ) -> list:
     """Batched CGS over a MotifSet; refines every motif in place.
 
-    The TPU analogue of the reference driver's OpenMP-over-motifs for
+    The batched analogue of the reference driver's OpenMP-over-motifs for
     --CGS: seeds of equal (W, K) sweep in one program sharing the
     sequence tensors.  The motif at INPUT position i samples with key
     fold_in(PRNGKey(params.seed), i) — global, not group-local, indices,
@@ -666,9 +526,9 @@ def run_gibbs_multi(
         A = group[0].A
         M = len(group)
         if M == 1:
-            # single-member group: the seed-stacked machinery's vmapped
-            # stages cost ~1.7x at M=1 (measured); the plain path with the
-            # same global-index key reproduces the stacked member exactly
+            # single-member group: the plain path needs none of the
+            # seed-stacked vmaps, and with the same global-index key it
+            # reproduces the stacked member exactly
             results[idxs[0]] = run_gibbs(
                 group[0], bg, sset, params, mesh=mesh,
                 key=jax.random.fold_in(base_key, idxs[0]),
@@ -702,11 +562,10 @@ def run_gibbs_multi(
 
         n_iters = params.maxCGSIterations
         burn_in = min(getattr(params, "cgsBurnIn", 0), max(n_iters - 1, 0))
-        path = choose_path(params, K, sharded=mesh is not None, A=A)
         loop = _batched_gibbs_loop(
             A, K, W, M,
             not params.noZSampling, not params.noQSampling,
-            not params.noAlphaOptimization, path, n_iters, burn_in, mesh,
+            not params.noAlphaOptimization, n_iters, burn_in,
         )
         args = (v, q, la, keys, data, f_bg, da,
                 jnp.asarray(n_real, jnp.float32))

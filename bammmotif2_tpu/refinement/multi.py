@@ -1,17 +1,12 @@
 """Multi-seed refinement: one batched device program over the seed axis.
 
-TPU-native equivalent of the reference driver's
-``#pragma omp parallel for`` over the MotifSet (SURVEY.md 3.1): instead of
-threads, all seeds of equal (W, K) refine in ONE batched XLA program
-inside a single jitted while_loop, and the sequence tensors are shared.
-On the Pallas path the seeds are STACKED INTO ONE KERNEL
-(pallas_em.em_counts_multi): the M LUTs ride the E/M matmuls' output rows
-so every seed shares the same one-hot — this fills the MXU that a single
-W~12 seed structurally cannot (docs/PERFORMANCE.md) and compiles once for
-the whole group instead of M times.  The gather/flat fallbacks statically
-unroll the per-seed step (NOT jax.vmap: the Pallas batching rule costs
-~15x on TPU).  On a ('data', 'seed') mesh the seed axis shards over its
-own mesh axis while sequences shard over 'data' (2-D parallelism).
+JAX equivalent of the reference driver's ``#pragma omp parallel for``
+over the MotifSet (SURVEY.md 3.1): instead of threads, all seeds of equal
+(W, K) refine in ONE batched XLA program inside a single jitted
+while_loop, and the sequence tensors are shared.  The batched step
+statically unrolls the per-seed ``em_step``, so XLA fuses the per-seed
+programs freely.  On a ('data', 'seed') mesh the seed axis shards over
+its own mesh axis while sequences shard over 'data' (2-D parallelism).
 
 Seeds with differing widths are grouped by (W, K) and each group runs
 batched; the host loop iterates until every member converges (finished
@@ -29,7 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from bammmotif2_tpu.models.background import BackgroundModel
-from bammmotif2_tpu.refinement.em import EMResult, choose_path, em_step, prepare_data
+from bammmotif2_tpu.refinement.em import EMResult, em_step, prepare_data
 from bammmotif2_tpu.ops import encode
 from bammmotif2_tpu.utils.config import Params
 from bammmotif2_tpu.utils.fasta import SequenceSet
@@ -83,7 +78,6 @@ def run_em_multi(
         alphas = jnp.stack([jnp.asarray(m.alphas, jnp.float32) for m in group])
         f_bg = jnp.asarray(group[0].f_bg, jnp.float32)
 
-        path = choose_path(params, K, sharded=mesh is not None, A=A)
         m_pad = 0
         if mesh is not None:
             from jax.sharding import NamedSharding, PartitionSpec as P
@@ -109,8 +103,7 @@ def run_em_multi(
             alphas = mesh_mod._put(alphas, seed_sh)
 
         loop, hist_stride = _batched_optimize(
-            A, K, W, params.optimizeQ, path,
-            params.maxEMIterations, mesh=mesh,
+            A, K, W, params.optimizeQ, params.maxEMIterations
         )
         n_win = n_win_1
         t0 = time.perf_counter()
@@ -150,99 +143,7 @@ def run_em_multi(
     return results
 
 
-def _stacked_em_counts(s_flat_m, cidx, lens, q_m, *, A, K, W, R, interpret):
-    """Seed-stacked fused kernel in VMEM-bounded chunks.
-
-    One pallas_em.em_counts_multi call scores/counts up to max_seeds seeds
-    at once — the M LUTs ride the matmuls' output rows so every seed shares
-    the same one-hot (the MXU-fill lever, docs/PERFORMANCE.md).  Larger
-    groups split into static chunks.  Returns (C [M, R+1, W], ll [M]).
-    """
-    from bammmotif2_tpu.ops import pallas_em
-
-    M = s_flat_m.shape[0]
-    S, _, L = cidx.shape
-    Mc = pallas_em.max_seeds(K, W, A=A, S=S, L=L)
-    if M <= Mc:
-        return pallas_em.em_counts_multi(
-            s_flat_m, cidx, lens, q_m, A=A, K=K, W=W, R=R, interpret=interpret
-        )
-    # balanced chunks: 7 seeds at Mc=6 run as 4+3, not 6+1 — a trailing
-    # tiny stack wastes the whole point (measured on v5e: 4+3 beats 6+1)
-    n_chunks = -(-M // Mc)
-    size = -(-M // n_chunks)
-    Cs, lls = [], []
-    for i0 in range(0, M, size):
-        C_i, ll_i = pallas_em.em_counts_multi(
-            s_flat_m[i0 : i0 + size], cidx, lens, q_m[i0 : i0 + size],
-            A=A, K=K, W=W, R=R, interpret=interpret,
-        )
-        Cs.append(C_i)
-        lls.append(ll_i)
-    return jnp.concatenate(Cs), jnp.concatenate(lls)
-
-
-def _pallas_batched_step(A: int, K: int, W: int, optimize_q: bool,
-                         mesh=None, interpret: bool = False):
-    """One batched EM iteration over the seed axis with the seed-stacked
-    Pallas kernel.  With a mesh: shard_map composes OUTSIDE — each device
-    runs the stacked kernel for its local seed slice over its local data
-    shard, then one psum over 'data' merges counts/likelihood.  Without a
-    mesh the stacked kernel runs on the full data.  Model math
-    (pseudo-count update, q, v_diff) stays in plain GSPMD per seed.
-    """
-    from bammmotif2_tpu.models import motif as motif_mod
-
-    R = encode.num_rows(A, K)
-
-    def step(v, q, data, alphas, f_bg, n_real):
-        bg_flat = data["bg_flat"]
-        s_flat = jax.vmap(lambda vk: motif_mod.log_odds_lut(vk, bg_flat))(v)
-
-        if mesh is None:
-            C, ll = _stacked_em_counts(
-                s_flat, data["cidx"], data["lens"], q,
-                A=A, K=K, W=W, R=R, interpret=interpret,
-            )
-        else:
-            from jax.sharding import PartitionSpec as P
-
-            def per_shard(s_flat_l, q_l, cidx_s, lens_s):
-                C, ll = _stacked_em_counts(
-                    s_flat_l, cidx_s, lens_s, q_l,
-                    A=A, K=K, W=W, R=R, interpret=interpret,
-                )
-                return jax.lax.psum(C, "data"), jax.lax.psum(ll, "data")
-
-            C, ll = jax.shard_map(
-                per_shard,
-                mesh=mesh,
-                in_specs=(P("seed"), P("seed"), P(None, "data", None),
-                          P("data")),
-                out_specs=(P("seed"), P("seed")),
-                check_vma=False,  # pallas_call outs carry no vma annotation
-            )(s_flat, q, data["cidx"], data["lens"])
-
-        def finish(Cm, qm, am, vm):
-            counts = motif_mod.counts_from_combined(Cm[:R], A, K)
-            v_new = motif_mod.update_v(counts, am, f_bg)
-            if optimize_q:
-                q_new = jnp.clip(Cm.sum(axis=0)[0] / n_real, 1e-4, 1 - 1e-4)
-            else:
-                q_new = qm
-            vd = sum(jnp.abs(a - b).sum() for a, b in zip(v_new, vm))
-            return v_new, q_new, vd
-
-        v_new, q_new, vd = jax.vmap(finish)(C, q, alphas, v)
-        # zero-length pad sequences each contribute log(1-q) (cf. em_step)
-        ll = ll - (data["lens"].shape[0] - n_real) * jnp.log1p(-q)
-        return v_new, q_new, ll, vd
-
-    return step
-
-
-def make_batched_step(A: int, K: int, W: int, optimize_q: bool, path: str,
-                      mesh=None):
+def make_batched_step(A: int, K: int, W: int, optimize_q: bool):
     """The one-batched-EM-iteration callable for a seed-stacked group.
 
     Shared by run_em_multi's convergence loop and the fused FDR group
@@ -250,27 +151,15 @@ def make_batched_step(A: int, K: int, W: int, optimize_q: bool, path: str,
     n_real) -> (v_new, q_new, ll, v_diff), everything carrying a leading
     seed axis M.
     """
-    if path.startswith("pallas_shard"):
-        return _pallas_batched_step(
-            A, K, W, optimize_q, mesh, interpret=path.endswith("interpret")
-        )
-    if path.startswith("pallas"):
-        return _pallas_batched_step(
-            A, K, W, optimize_q, mesh=None,
-            interpret=path.endswith("interpret"),
-        )
 
     def batched(v, q, data, alphas, f_bg, n_real):
-        # static unrolled loop over seeds, NOT vmap (the Pallas batching
-        # rule costs ~15x on TPU; on the gather path unrolling lets XLA
-        # fuse the per-seed programs freely)
+        # static unrolled loop over seeds: each member is the plain
+        # em_step, which XLA fuses per seed
         M = q.shape[0]
         outs = [
             em_step(
                 tuple(vk[m] for vk in v), q[m], data, alphas[m], f_bg,
-                n_real,
-                A=A, K=K, W=W, optimize_q=optimize_q, path=path,
-                mesh=mesh,
+                n_real, A=A, K=K, W=W, optimize_q=optimize_q,
             )
             for m in range(M)
         ]
@@ -340,23 +229,22 @@ def batched_while_loop(batched, v0, q0, data, alphas, f_bg, n_real,
 
 
 @functools.lru_cache(maxsize=64)
-def _batched_optimize(A: int, K: int, W: int, optimize_q: bool, path: str,
-                      max_iters: int, mesh=None):
+def _batched_optimize(A: int, K: int, W: int, optimize_q: bool,
+                      max_iters: int):
     """Batched on-device EM convergence loop over the seed axis.
 
     lru_cached by its (hashable) static configuration: the jitted loop
     closure must be REUSED across calls or every run_em_multi invocation
-    recompiles the whole while_loop program (~5 s on TPU vs 0.3 s of
-    actual EM).
+    traces and compiles the whole while_loop program again.
 
     One jitted while_loop for the whole group: every live seed steps in the
-    same batched program (full MXU utilization); a seed whose v_diff OR
+    same batched program; a seed whose v_diff OR
     |dll| drops under epsilon freezes (jnp.where mask) so its final state
     and iteration count are its own.  The loop exits when all seeds froze
     or the cap is hit — only then does anything return to host.
     """
 
-    batched = make_batched_step(A, K, W, optimize_q, path, mesh)
+    batched = make_batched_step(A, K, W, optimize_q)
 
     # convergence-trace buffer: lls at every ``stride``-th iteration land
     # in a fixed [HIST_CAP, M] carry slot (slot = it // stride, last write

@@ -1,6 +1,6 @@
 """Occurrence scanning: log-odds scores, empirical p-values, .occurrence.
 
-TPU-native equivalent of ``src/seq_scoring/ScoreSeqSet.{h,cpp}``
+JAX equivalent of ``src/seq_scoring/ScoreSeqSet.{h,cpp}``
 (``calcLogOdds``, ``calcPvalues``, ``write``): reuses the EM window-score
 op against the combined LUT, computes empirical p-values by rank against a
 sorted negative-score distribution (vectorized searchsorted instead of the
@@ -158,30 +158,20 @@ def _stacked_luts(motifs: list, bg: BackgroundModel) -> jnp.ndarray:
     ])
 
 
-def _use_pallas(K: int, A: int) -> bool:
-    if jax.default_backend() != "tpu":
-        return False
-    from bammmotif2_tpu.ops import pallas_em
-
-    return pallas_em.supported(K, A)
-
-
 @functools.partial(
-    jax.jit, static_argnames=("A", "K", "W", "B", "ss", "use_pallas")
+    jax.jit, static_argnames=("A", "K", "W", "B", "ss")
 )
 def _score_chunk_device(
     s_flat, codes, lens, comp_table, start,
-    *, A: int, K: int, W: int, B: int, ss: bool, use_pallas: bool,
+    *, A: int, K: int, W: int, B: int, ss: bool,
 ):
     """Score one B-row chunk of a DEVICE-RESIDENT code tensor, one program.
 
     Row slice, reverse complement, combined k-mer encoding
-    (encode.combined_kmer_index), the seed-stacked window-score kernel,
-    and the per-chunk reductions (ZOOPS maxima + valid-window count) all
-    fuse into this single jitted program — the per-chunk host work of the
-    round-4 scanner (SequenceSet.subset numpy slicing + host-side
-    strand_indices + re-upload) made a genome-scale scan encode-bound at
-    <2% kernel share.  ``start`` is dynamic: every chunk reuses one
+    (encode.combined_kmer_index), the seed-stacked window scores, and the
+    per-chunk reductions (ZOOPS maxima + valid-window count) all fuse into
+    this single jitted program, so no chunk needs host-side slicing,
+    encoding or a re-upload.  ``start`` is dynamic: every chunk reuses one
     compiled program.
 
     Returns (scores [M, S, B, n_win], mask [B, n_win], maxima [M, B],
@@ -198,17 +188,10 @@ def _score_chunk_device(
     cidx = jnp.stack(
         [encode.combined_kmer_index(c, A, K) for c in strands]
     )
-    if use_pallas:
-        from bammmotif2_tpu.ops import pallas_em
-
-        sc, mk = pallas_em.window_scores_multi(
-            s_flat, cidx, lens_c, A=A, K=K, W=W
-        )
-    else:
-        sc, mks = jax.vmap(
-            lambda sf: escore.window_scores(sf, cidx, lens_c, W)
-        )(s_flat)
-        mk = mks[0]
+    sc, mks = jax.vmap(
+        lambda sf: escore.window_scores(sf, cidx, lens_c, W)
+    )(s_flat)
+    mk = mks[0]
     return sc, mk, jnp.max(sc, axis=(1, 3)), jnp.sum(mk)
 
 
@@ -221,8 +204,8 @@ def _device_codes(sset: SequenceSet, B: int):
 
     Memoized on the SequenceSet instance: re-scanning the same set (the
     CLI scans it once per (W, K) group; benchmarks scan repeatedly) would
-    otherwise re-upload the code tensor every call — 20 MB per pass at
-    100k x 200 bp, the whole warm wall-clock on a slow transport.
+    otherwise re-upload the code tensor every call (20 MB per pass at
+    100k x 200 bp).
     """
     cache = sset.__dict__.setdefault("_device_codes_cache", {})
     hit = cache.get(B)
@@ -254,9 +237,8 @@ def score_set_multi(
 ) -> list:
     """score_set for several motifs of equal (W, K) in ONE stacked pass.
 
-    The M motifs' LUTs ride the scoring matmul's output rows, every motif
-    sharing each chunk's one-hot (pallas_em.window_scores_multi) — the
-    seed-stacked form of the reference driver's per-motif
+    The M motifs' window scores come from one vmapped program per chunk —
+    the seed-stacked form of the reference driver's per-motif
     ``ScoreSeqSet::calcLogOdds`` loop.  Returns a list of ScanResult
     aligned with ``motifs``.
 
@@ -286,7 +268,6 @@ def score_set_multi(
             for i in range(M)
         ]
     s_flat = _stacked_luts(motifs, bg)
-    use_pallas = _use_pallas(K, A)
     # the retained tensors' window axis is set by the PADDED length (every
     # chunk is [M, S, n, L_pad - W + 1]), not by lens.max(): a subset of
     # short rows from a wide-padded set would otherwise under-estimate by
@@ -297,7 +278,7 @@ def score_set_multi(
 
     B = max(1, min(batch, N)) if N else 1
     codes_dev, lens_dev, comp_dev, n_chunks = _device_codes(sset, B)
-    statics = dict(A=A, K=K, W=W, B=B, ss=ss, use_pallas=use_pallas)
+    statics = dict(A=A, K=K, W=W, B=B, ss=ss)
 
     chunks: list | None = [] if retain else None
     mxs, cnts = [], []
@@ -462,9 +443,8 @@ def find_occurrences(
     # with hi(s) = #neg <= s, so pv <= cutoff requires
     # hi(s) >= k = M + 1 - cutoff * (M + 1).  Only windows scoring at or
     # above the k-th smallest negative can pass — searchsorted then runs
-    # on the few candidates instead of every window (XLA lowers
-    # searchsorted to a per-query binary-search loop: ~17 s per 42M
-    # queries on a v5e, the entire cost of a genome-scale extraction).
+    # on the few candidates instead of every window (one binary search
+    # per query).
     if M > 0 and pval_cutoff < 1.0:
         k = int(np.clip(np.ceil((M + 1) * (1.0 - pval_cutoff)), 1, M))
         s_cut = neg[pad + k - 1]

@@ -1,6 +1,6 @@
 """Alphabet: letter <-> integer-code maps, complement tables.
 
-TPU-native equivalent of the reference's ``src/init/Alphabet.{h,cpp}``
+JAX equivalent of the reference's ``src/init/Alphabet.{h,cpp}``
 (``Alphabet::init(type)``, ``getCode``, ``getBase``, ``getComplementCode``).
 Codes are 0-based contiguous integers so that k-mers index dense tensors;
 ambiguous/unknown letters (N, ...) map to the sentinel ``Alphabet.AMBIG``

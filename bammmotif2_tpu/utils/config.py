@@ -1,6 +1,6 @@
 """Run configuration with the reference's flag names and defaults.
 
-TPU-native equivalent of ``src/Global/Global.{h,cpp}`` (static globals +
+JAX equivalent of ``src/Global/Global.{h,cpp}`` (static globals +
 vendored getopt_pp): a plain dataclass consumed everywhere, plus an
 argparse front-end in ``bammmotif2_tpu.cli`` that accepts the reference's
 command lines unmodified (``BaMMmotif OUTDIR POSFASTA --EM --FDR ...``).
@@ -84,9 +84,8 @@ class Params:
     saveLogOdds: bool = False               # --saveLogOdds
     verbose: bool = False                   # --verbose
 
-    # --- TPU-native extensions (absent in reference) -------------------- #
+    # --- extensions (absent in reference) ------------------------------ #
     seed: int = 42                          # PRNG seed for jax.random
-    use_pallas: bool = True                 # fused Pallas EM kernel when possible
     multiDevice: bool = True                # shard over all devices/hosts if >1
     data_axis: str = "data"                 # mesh axis name for sequence sharding
     jsonl: bool = False                     # --jsonl : structured metrics file

@@ -1,6 +1,6 @@
 """FASTA parsing and one-shot host-side tensorization.
 
-TPU-native equivalent of ``src/init/SequenceSet.{h,cpp}`` and
+JAX equivalent of ``src/init/SequenceSet.{h,cpp}`` and
 ``src/init/Sequence.{h,cpp}``: instead of a vector of per-sequence objects,
 the whole set is tensorized once into
 

@@ -1,6 +1,6 @@
 """Structured run metrics: JSONL event stream.
 
-TPU-native upgrade of the reference's stdout prints (``main.cpp`` runtime
+Extension beyond the reference's stdout prints (``main.cpp`` runtime
 printouts, ``--verbose`` per-iteration log-likelihoods — SURVEY.md §5
 Metrics/logging row): every pipeline stage emits one JSON object per line
 to ``<outdir>/<basename>.metrics.jsonl`` when ``--jsonl`` is set, carrying

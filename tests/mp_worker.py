@@ -54,7 +54,7 @@ m = seeds_mod.motif_from_pwm(
     seeds_mod.iupac_to_pwm("TGACTCAG", soft=0.6), K=2,
     f_bg=sset.base_frequencies(),
 )
-params = Params(EM=True, q=0.5, maxEMIterations=25, use_pallas=False)
+params = Params(EM=True, q=0.5, maxEMIterations=25)
 mesh = distributed.auto_mesh(n_seeds=1)
 assert mesh is not None and mesh.shape["data"] == 2 * nproc
 res = run_em(m, bg, sset, params, mesh=mesh)

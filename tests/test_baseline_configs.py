@@ -1,9 +1,9 @@
 """The five canonical configs from BASELINE.json, at CI scale.
 
 Each test mirrors one entry of BASELINE.json's ``configs`` list (the
-reference's benchmark matrix); full-scale runs execute on real TPU via
-bench.py / the CLI. Sizes here are reduced so the suite stays fast on the
-8-virtual-device CPU backend.
+reference's benchmark matrix); ``chip_smoke.py`` runs configs 3-5 at
+their published sizes on the GPU.  Sizes here are reduced so the suite
+stays fast on the 8-virtual-device CPU backend.
 """
 
 import numpy as np
@@ -91,7 +91,7 @@ class TestBaselineConfigs:
 
     def test_config5_genome_scale_scan(self, tmp_path):
         """Occurrence scanning of a learned BaMM over a large set with
-        p-value output (CI-scale: 2k sequences; TPU bench: 10k+)."""
+        p-value output (CI-scale: 2k sequences; chip_smoke.py: 100k)."""
         sset = planted_set(n=2000, l=100, motif=MOTIF, q=0.5, noise=0.05)
         fasta = tmp_path / "scan.fasta"
         write_fasta(fasta, sset)
@@ -108,7 +108,7 @@ class TestBaselineConfigs:
         rc = main(
             [str(out), str(fasta), "--PWMFile", str(meme), "--EM",
              "--scoreSeqset", "--pvalCutoff", "0.01", "-q", "0.5",
-             "--no-pallas", "--basename", "t"]
+             "--basename", "t"]
         )
         assert rc == 0
         lines = (out / "t_motif_1.occurrence").read_text().splitlines()

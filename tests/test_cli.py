@@ -66,7 +66,7 @@ class TestPipeline:
         out = d / "run_pattern"
         rc = main(
             [str(out), fasta, "--pattern", MOTIF, "--EM", "-k", "2",
-             "-q", "0.5", "--no-pallas", "--basename", "t"]
+             "-q", "0.5", "--basename", "t"]
         )
         assert rc == 0
         from bammmotif2_tpu.models.motif import Motif
@@ -96,7 +96,7 @@ class TestPipeline:
         out = d / "run_em"
         rc = main(
             [str(out), fasta, "--PWMFile", meme, "--EM", "-k", "2",
-             "-q", "0.5", "--no-pallas", "--basename", "t"]
+             "-q", "0.5", "--basename", "t"]
         )
         assert rc == 0
         files = os.listdir(out)
@@ -114,7 +114,7 @@ class TestPipeline:
         out = d / "run_scan"
         rc = main(
             [str(out), fasta, "--PWMFile", meme, "--EM", "--scoreSeqset",
-             "--pvalCutoff", "0.01", "-q", "0.5", "--no-pallas",
+             "--pvalCutoff", "0.01", "-q", "0.5",
              "--basename", "t", "--saveLogOdds"]
         )
         assert rc == 0
@@ -127,7 +127,7 @@ class TestPipeline:
         out = d / "run_fdr"
         rc = main(
             [str(out), fasta, "--PWMFile", meme, "--EM", "--FDR",
-             "--cvFold", "3", "--mFold", "2", "-q", "0.5", "--no-pallas",
+             "--cvFold", "3", "--mFold", "2", "-q", "0.5",
              "--basename", "t", "--savePvalues"]
         )
         assert rc == 0
@@ -154,7 +154,7 @@ class TestPipeline:
         out = d / "run_jsonl"
         rc = main(
             [str(out), fasta, "--PWMFile", meme, "--EM", "-q", "0.5",
-             "--no-pallas", "--basename", "t", "--jsonl",
+             "--basename", "t", "--jsonl",
              "--checkpointEvery", "3"]
         )
         assert rc == 0
@@ -179,9 +179,9 @@ class TestPipeline:
         out_a = d / "run_ck"
         out_b = d / "run_os"
         main([str(out_a), fasta, "--PWMFile", meme, "--EM", "-q", "0.5",
-              "--no-pallas", "--basename", "t", "--checkpointEvery", "2"])
+              "--basename", "t", "--checkpointEvery", "2"])
         main([str(out_b), fasta, "--PWMFile", meme, "--EM", "-q", "0.5",
-              "--no-pallas", "--basename", "t"])
+              "--basename", "t"])
         a = (out_a / "t_motif_1.ihbcp").read_text()
         b = (out_b / "t_motif_1.ihbcp").read_text()
         assert a == b
@@ -196,7 +196,7 @@ class TestPipeline:
         out1 = d / "run_resume1"
         rc = main(
             [str(out1), fasta, "--PWMFile", meme, "--EM", "-q", "0.5",
-             "--no-pallas", "--basename", "t"]
+             "--basename", "t"]
         )
         assert rc == 0
         saved = out1 / "t_motif_1.ihbcp"
@@ -207,7 +207,7 @@ class TestPipeline:
         rc = main(
             [str(out2), fasta, "--BaMMFile", str(saved),
              "--bgModelFile", str(out1 / "t.hbcp"), "--EM", "-q", "0.5",
-             "--no-pallas", "--basename", "t"]
+             "--basename", "t"]
         )
         assert rc == 0
         m1 = Motif.read(str(saved))
@@ -237,7 +237,7 @@ class TestPipeline:
         out = d / "run_optout"
         rc = main(
             [str(out), fasta, "--PWMFile", meme, "--EM", "--FDR",
-             "--cvFold", "2", "--mFold", "2", "-q", "0.5", "--no-pallas",
+             "--cvFold", "2", "--mFold", "2", "-q", "0.5",
              "--basename", "t", "--no-saveBaMMs", "--no-savePRs"]
         )
         assert rc == 0
@@ -259,7 +259,7 @@ class TestPipeline:
         out = d / "run_basebg"
         rc = main(
             [str(out), fasta, "--PWMFile", meme, "--EM", "-q", "0.5",
-             "--no-pallas", "--basename", "t"]
+             "--basename", "t"]
         )
         assert rc == 0
         bg = BackgroundModel.read(str(out / "t.hbcp"))
@@ -291,7 +291,7 @@ class TestEMThenCGS:
         out = run_pipeline(params_from_args([
             str(tmp_path / "o"), fasta, "--PWMFile", meme,
             "--EM", "--CGS", "--maxEMIterations", "10",
-            "--maxCGSIterations", "5", "-q", "0.5", "--no-pallas",
+            "--maxCGSIterations", "5", "-q", "0.5",
         ]))
         assert "em_results" in out and "cgs_results" in out
         assert len(out["cgs_results"]) == len(out["em_results"]) == 1

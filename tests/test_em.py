@@ -107,7 +107,7 @@ class TestEM:
             K=K,
             f_bg=sset.base_frequencies(),
         )
-        params = Params(EM=True, q=0.5, use_pallas=False)
+        params = Params(EM=True, q=0.5)
         res = run_em(motif, bg, sset, params)
         assert res.iterations >= 1
         consensus = "".join("ACGT"[i] for i in motif.v[0].argmax(axis=0))
@@ -122,7 +122,7 @@ class TestEM:
             K=2,
             f_bg=sset.base_frequencies(),
         )
-        params = Params(EM=True, q=0.5, maxEMIterations=15, use_pallas=False)
+        params = Params(EM=True, q=0.5, maxEMIterations=15)
         res = run_em(motif, bg, sset, params)
         ll = np.array(res.ll_history)
         # EM monotonicity (small float32 slack)
@@ -133,7 +133,7 @@ class TestEM:
         motif = seeds_mod.motif_from_pwm(
             seeds_mod.iupac_to_pwm("TGACTCAG"), K=2, f_bg=sset.base_frequencies()
         )
-        run_em(motif, bg, sset, Params(EM=True, maxEMIterations=5, use_pallas=False))
+        run_em(motif, bg, sset, Params(EM=True, maxEMIterations=5))
         for k, vk in enumerate(motif.v):
             sums = vk.reshape(-1, 4, motif.W).sum(axis=1)
             np.testing.assert_allclose(sums, 1.0, atol=1e-4, err_msg=f"order {k}")
@@ -145,7 +145,7 @@ class TestEM:
             K=2,
             f_bg=sset.base_frequencies(),
         )
-        params = Params(EM=True, q=0.3, optimizeQ=True, maxEMIterations=40, use_pallas=False)
+        params = Params(EM=True, q=0.3, optimizeQ=True, maxEMIterations=40)
         res = run_em(motif, bg, sset, params)
         # planted occurrence rate is 0.8
         assert 0.5 < res.q <= 1.0
@@ -157,7 +157,7 @@ class TestEM:
             K=1,
             f_bg=sset.base_frequencies(),
         )
-        params = Params(EM=True, ss=True, maxEMIterations=10, use_pallas=False)
+        params = Params(EM=True, ss=True, maxEMIterations=10)
         res = run_em(motif, bg, sset, params)
         assert np.isfinite(res.ll)
 
@@ -192,7 +192,7 @@ class TestExtendedAlphabetEM:
             pwm, K=1, f_bg=sset.base_frequencies(), alphabet=alpha
         )
         r = run_em(
-            m, bg, sset, Params(EM=True, q=0.7, ss=True, use_pallas=False)
+            m, bg, sset, Params(EM=True, q=0.7, ss=True)
         )
         cons = "".join(alpha.letters[i] for i in m.v[0].argmax(axis=0))
         assert cons == motif

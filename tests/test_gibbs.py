@@ -139,9 +139,9 @@ class TestGibbsScaleOut:
                 single.alphas, batched.alphas, rtol=1e-4
             )
 
-    def test_pallas_shard_step_matches_gather(self):
-        # the production TPU multi-chip CGS path (shard_map'd Pallas kernel
-        # + psum counts) in interpret mode vs the XLA gather path
+    def test_sharded_step_matches_unsharded(self):
+        # one CGS sweep on data sharded over 4 devices (GSPMD count
+        # all-reduce) vs the same sweep unsharded, same key
         import jax.numpy as jnp
 
         from bammmotif2_tpu.ops import encode
@@ -156,7 +156,7 @@ class TestGibbsScaleOut:
         mesh = mesh_mod.make_mesh(n_data=4, n_seed=1, devices=jax.devices()[:4])
         sdata = mesh_mod.shard_em_data(mesh, data, encode.num_rows(4, 2))
 
-        def step(d, path, mesh):
+        def step(d):
             return gibbs_step(
                 tuple(jnp.asarray(vk, jnp.float32) for vk in m.v),
                 jnp.float32(0.5),
@@ -167,20 +167,19 @@ class TestGibbsScaleOut:
                 jnp.asarray(m.alphas, jnp.float32),
                 jnp.float32(sset.n),
                 A=4, K=2, W=m.W, sample_z=True, sample_q=True,
-                learn_alpha=True, path=path, mesh=mesh,
+                learn_alpha=True,
             )
 
-        g = step(data, "gather", None)
-        p = step(sdata, "pallas_shard_interpret", mesh)
+        g = step(data)
+        p = step(sdata)
         for a, b in zip(g[0], p[0]):  # v
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
         assert float(g[4]) == pytest.approx(float(p[4]), rel=1e-5)  # ll
         assert int(g[5]) == int(p[5])  # n_occ
 
-    def test_multi_pallas_shard_step_matches_single_gather(self):
-        # seed-stacked sharded sweep (window_scores_multi +
-        # counts_from_r_multi under shard_map, interpret mode) vs the
-        # single-seed gather gibbs_step, member by member
+    def test_multi_sharded_step_matches_single_unsharded(self):
+        # seed-stacked sweep on data sharded over 4 devices vs the
+        # single-seed unsharded gibbs_step, member by member
         import jax.numpy as jnp
 
         from bammmotif2_tpu.ops import encode
@@ -208,8 +207,7 @@ class TestGibbsScaleOut:
             keys, sdata,
             jnp.asarray(seeds[0].f_bg, jnp.float32),
             jnp.stack([jnp.asarray(m.alphas, jnp.float32) for m in seeds]),
-            jnp.float32(sset.n),
-            path="pallas_shard_interpret", mesh=mesh, **kw,
+            jnp.float32(sset.n), **kw,
         )
         for i, m in enumerate(seeds):
             g = gibbs_step(
@@ -219,8 +217,7 @@ class TestGibbsScaleOut:
                 keys[i], data,
                 jnp.asarray(m.f_bg, jnp.float32),
                 jnp.asarray(m.alphas, jnp.float32),
-                jnp.float32(sset.n),
-                path="gather", mesh=None, **kw,
+                jnp.float32(sset.n), **kw,
             )
             for a, b in zip(g[0], (vk[i] for vk in mult[0])):
                 np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
@@ -276,7 +273,7 @@ class TestCGSValidation:
         ll_seed = self._heldout_ll(m_seed, bg, held)
 
         m_em = seed_motif(train, soft=0.55)
-        run_em(m_em, bg, train, Params(EM=True, q=0.5, use_pallas=False))
+        run_em(m_em, bg, train, Params(EM=True, q=0.5))
         ll_em = self._heldout_ll(m_em, bg, held)
 
         m_cgs = seed_motif(train, soft=0.55)

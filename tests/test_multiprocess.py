@@ -75,7 +75,7 @@ def test_two_process_em_matches_single_process(tmp_path):
         f_bg=sset.base_frequencies(),
     )
     res = run_em(
-        m, bg, sset, Params(EM=True, q=0.5, maxEMIterations=25, use_pallas=False)
+        m, bg, sset, Params(EM=True, q=0.5, maxEMIterations=25)
     )
 
     assert int(mp["iterations"]) == res.iterations

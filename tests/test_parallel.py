@@ -34,7 +34,7 @@ def seed_motif(sset, K=2, soft=0.6):
 class TestShardInvariance:
     def test_sharded_em_matches_single_device(self, planted):
         sset, bg = planted
-        params = Params(EM=True, q=0.5, maxEMIterations=10, optimizeQ=True, use_pallas=False)
+        params = Params(EM=True, q=0.5, maxEMIterations=10, optimizeQ=True)
 
         m_single = seed_motif(sset)
         r_single = run_em(m_single, bg, sset, params)
@@ -54,7 +54,7 @@ class TestShardInvariance:
         mesh = mesh_mod.make_mesh(n_data=4, n_seed=2)
         assert dict(mesh.shape) == {"data": 4, "seed": 2}
         m = seed_motif(sset)
-        params = Params(EM=True, maxEMIterations=3, use_pallas=False)
+        params = Params(EM=True, maxEMIterations=3)
         r = run_em(m, bg, sset, params, mesh=mesh)
         assert np.isfinite(r.ll)
 
@@ -62,7 +62,7 @@ class TestShardInvariance:
 class TestMultiSeed:
     def test_vmap_matches_sequential(self, planted):
         sset, bg = planted
-        params = Params(EM=True, q=0.5, maxEMIterations=8, use_pallas=False)
+        params = Params(EM=True, q=0.5, maxEMIterations=8)
 
         seeds = [seed_motif(sset, soft=s) for s in (0.55, 0.65, 0.75)]
         singles = [m.copy() for m in seeds]
@@ -81,22 +81,19 @@ class TestMultiSeed:
         m2 = seeds_mod.motif_from_pwm(
             seeds_mod.iupac_to_pwm("TGACTC"), K=2, f_bg=sset.base_frequencies()
         )  # W=6
-        res = run_em_multi([m1, m2], bg, sset, Params(EM=True, maxEMIterations=3, use_pallas=False))
+        res = run_em_multi([m1, m2], bg, sset, Params(EM=True, maxEMIterations=3))
         assert all(r is not None and np.isfinite(r.ll) for r in res)
 
     def test_multi_seed_on_mesh(self, planted):
         sset, bg = planted
         mesh = mesh_mod.make_mesh(n_data=4, n_seed=2)
         seeds = [seed_motif(sset, soft=s) for s in (0.6, 0.7)]
-        res = run_em_multi(seeds, bg, sset, Params(EM=True, maxEMIterations=3, use_pallas=False), mesh=mesh)
+        res = run_em_multi(seeds, bg, sset, Params(EM=True, maxEMIterations=3), mesh=mesh)
         assert all(np.isfinite(r.ll) for r in res)
 
 
 class TestGraftEntry:
     def test_entry_compiles(self):
-        import sys
-
-        sys.path.insert(0, "/root/repo")
         import __graft_entry__ as ge
 
         fn, args = ge.entry()
@@ -106,23 +103,21 @@ class TestGraftEntry:
         assert np.isfinite(float(ll))
 
     def test_dryrun_multichip(self, capsys):
-        import sys
-
-        sys.path.insert(0, "/root/repo")
         import __graft_entry__ as ge
 
         ge.dryrun_multichip(8)
         assert "dryrun_multichip OK" in capsys.readouterr().out
 
 
-class TestMultiSeedShardedPallas:
-    def test_composite_matches_sequential_gather(self, planted):
-        """shard_map(data) ∘ vmap(seed) ∘ Pallas kernel == per-seed gather."""
+class TestMultiSeedSharded:
+    def test_sharded_batched_step_matches_per_seed(self, planted):
+        """One batched step on the ('data', 'seed') mesh == per-seed
+        unsharded em_step."""
         import jax.numpy as jnp
 
         from bammmotif2_tpu.ops import encode
         from bammmotif2_tpu.refinement.em import em_step, prepare_data
-        from bammmotif2_tpu.refinement.multi import _pallas_batched_step
+        from bammmotif2_tpu.refinement.multi import make_batched_step
 
         sset, bg = planted
         seeds = [seed_motif(sset, soft=s) for s in (0.6, 0.7)]
@@ -138,23 +133,26 @@ class TestMultiSeedShardedPallas:
                 em_step(
                     v, jnp.float32(0.9), data,
                     jnp.asarray(m.alphas, jnp.float32),
-                    jnp.asarray(m.f_bg, jnp.float32), nr,
-                    path="gather", **kw,
+                    jnp.asarray(m.f_bg, jnp.float32), nr, **kw,
                 )
             )
 
         mesh = mesh_mod.make_mesh(n_data=4, n_seed=2)
         sdata = mesh_mod.shard_em_data(mesh, data, encode.num_rows(4, K))
-        vb = tuple(
+        seed_sh = jax.sharding.NamedSharding(
+            mesh, jax.sharding.PartitionSpec("seed")
+        )
+        vb = jax.device_put(tuple(
             jnp.stack([jnp.asarray(m.v[k], jnp.float32) for m in seeds])
             for k in range(K + 1)
+        ), seed_sh)
+        qb = jax.device_put(jnp.full((2,), 0.9, jnp.float32), seed_sh)
+        ab = jax.device_put(
+            jnp.stack([jnp.asarray(m.alphas, jnp.float32) for m in seeds]),
+            seed_sh,
         )
-        qb = jnp.full((2,), 0.9, jnp.float32)
-        ab = jnp.stack([jnp.asarray(m.alphas, jnp.float32) for m in seeds])
-        f_bg = jnp.asarray(seeds[0].f_bg, jnp.float32)
-        step = _pallas_batched_step(
-            4, K, W, True, mesh, interpret=True
-        )
+        f_bg = mesh_mod.replicate(mesh, jnp.asarray(seeds[0].f_bg, jnp.float32))
+        step = make_batched_step(4, K, W, True)
         v_new, q_new, lls, vds = jax.jit(step)(vb, qb, sdata, ab, f_bg, nr)
 
         for gi, (vr, qr, llr, vdr) in enumerate(refs):
@@ -166,14 +164,12 @@ class TestMultiSeedShardedPallas:
                 )
 
 
-class TestShardedPallas:
-    def test_pallas_shard_matches_gather(self, planted):
-        """shard_map'd Pallas kernel (interpret) == unsharded gather path."""
+class TestShardedStep:
+    def test_sharded_step_matches_unsharded(self, planted):
+        """em_step on data sharded over 8 devices == unsharded em_step."""
         import jax.numpy as jnp
 
-        from bammmotif2_tpu.models.background import BackgroundModel
         from bammmotif2_tpu.ops import encode
-        from bammmotif2_tpu.parallel import mesh as mesh_mod
         from bammmotif2_tpu.refinement.em import em_step, prepare_data
 
         sset, bg = planted
@@ -187,14 +183,13 @@ class TestShardedPallas:
         nr = jnp.asarray(float(sset.n), jnp.float32)
         kw = dict(A=4, K=K, W=W, optimize_q=True)
 
-        vg, qg, llg, vdg = em_step(v, q, data, alphas, f_bg, nr, path="gather", **kw)
+        vg, qg, llg, vdg = em_step(v, q, data, alphas, f_bg, nr, **kw)
 
         mesh = mesh_mod.make_mesh(n_data=8, n_seed=1)
         sdata = mesh_mod.shard_em_data(mesh, data, encode.num_rows(4, K))
-        vp, qp, llp, vdp = em_step(
-            v, q, sdata, alphas, f_bg, nr,
-            path="pallas_shard_interpret", mesh=mesh, **kw
-        )
+        assert len(sdata["cidx"].sharding.device_set) == 8
+        v_r, q_r, a_r, f_r = mesh_mod.replicate(mesh, (v, q, alphas, f_bg))
+        vp, qp, llp, vdp = em_step(v_r, q_r, sdata, a_r, f_r, nr, **kw)
         np.testing.assert_allclose(float(llg), float(llp), rtol=1e-5)
         np.testing.assert_allclose(float(qg), float(qp), rtol=1e-5)
         for a, b in zip(vg, vp):
@@ -208,13 +203,13 @@ class TestBatchedLLHistory:
         HIST_CAP) — --jsonl convergence traces survive the production
         (batched) path."""
         sset, bg = planted
-        params = Params(EM=True, q=0.5, maxEMIterations=12, use_pallas=False)
+        params = Params(EM=True, q=0.5, maxEMIterations=12)
         seeds = [seed_motif(sset, soft=s) for s in (0.55, 0.75)]
         solo_hist = []
         for m in seeds:
             mm = m.copy()
             r = run_em(mm, bg, sset, Params(
-                EM=True, q=0.5, maxEMIterations=12, use_pallas=False,
+                EM=True, q=0.5, maxEMIterations=12,
                 verbose=True,
             ))
             solo_hist.append(r.ll_history)

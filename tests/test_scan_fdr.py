@@ -26,7 +26,7 @@ def trained():
     )
     from bammmotif2_tpu.refinement.em import run_em
 
-    run_em(m, bg, sset, Params(EM=True, q=0.5, use_pallas=False))
+    run_em(m, bg, sset, Params(EM=True, q=0.5))
     return sset, bg, m
 
 
@@ -212,7 +212,7 @@ class TestFDR:
             seeds_mod.iupac_to_pwm(MOTIF, soft=0.6), K=2, f_bg=sset.base_frequencies()
         )
         params = Params(
-            FDR=True, cvFold=3, mFold=2, q=0.5, maxEMIterations=20, use_pallas=False
+            FDR=True, cvFold=3, mFold=2, q=0.5, maxEMIterations=20
         )
         res = evaluate_motif(seed, bg, sset, params)
         # a strongly planted motif must separate well
@@ -234,7 +234,7 @@ class TestFDRFoldMasks:
 
         sset = planted_set(n=60, l=50, motif=MOTIF, q=0.8, noise=0.05)
         bg = BackgroundModel.from_sequence_set(sset, order=2)
-        params = Params(EM=True, q=0.5, maxEMIterations=15, use_pallas=False)
+        params = Params(EM=True, q=0.5, maxEMIterations=15)
         train_sel = np.arange(sset.n) % 3 != 0
 
         def seed():
@@ -272,7 +272,6 @@ class TestFDRFoldMasks:
         )
         params = Params(
             FDR=True, cvFold=4, mFold=2, q=0.5, maxEMIterations=10,
-            use_pallas=False,
         )
         em_before = len(em_mod._AOT_CACHE)
         sc_before = fdr_mod._fold_scores._cache_size()
@@ -292,7 +291,6 @@ class TestFDRUserNegatives:
         )
         params = Params(
             FDR=True, cvFold=3, mFold=2, q=0.5, maxEMIterations=10,
-            use_pallas=False,
         )
         r1 = evaluate_motif(seed.copy(), bg, sset, params, neg_set=neg)
         r2 = evaluate_motif(seed.copy(), bg, sset, params, neg_set=neg)
@@ -453,7 +451,6 @@ class TestFusedFDR:
         sset, bg, _ = trained
         params = Params(
             FDR=True, cvFold=3, mFold=2, q=0.5, maxEMIterations=15,
-            use_pallas=False,
         )
         specs = [MOTIF, "TGACTCAG", "ACGTACGT"]
         ref = [
@@ -470,7 +467,6 @@ class TestFusedFDR:
         neg = planted_set(n=100, l=80, motif="ACGTACGT", q=0.0, noise=1.0)
         params = Params(
             FDR=True, cvFold=3, mFold=2, q=0.5, maxEMIterations=10,
-            use_pallas=False,
         )
         specs = [MOTIF, "ACGTACGT"]
         ref = [
@@ -488,7 +484,7 @@ class TestFusedFDR:
         sset, bg, _ = trained
         params = Params(
             FDR=True, CGS=True, cvFold=2, mFold=2, q=0.5,
-            maxCGSIterations=6, cgsBurnIn=2, use_pallas=False,
+            maxCGSIterations=6, cgsBurnIn=2,
         )
         specs = [MOTIF, "ACGTACGT"]
         ref = [
@@ -507,7 +503,6 @@ class TestFusedFDR:
         sset, bg, _ = trained
         params = Params(
             FDR=True, cvFold=3, mFold=2, q=0.5, maxEMIterations=10,
-            use_pallas=False,
         )
 
         def boom(*a, **k):
@@ -530,7 +525,6 @@ class TestFusedFDR:
         sset, bg, _ = trained
         params = Params(
             FDR=True, cvFold=1, mFold=2, q=0.5, maxEMIterations=5,
-            use_pallas=False,
         )
         res = evaluate_motifs(self._seeds(sset, [MOTIF]), bg, sset, params)
         assert len(res) == 1 and res[0].zoops["score"].size > 0
@@ -585,7 +579,6 @@ class TestMOPSDiscrimination:
 
         params = Params(
             FDR=True, cvFold=2, mFold=4, q=0.9, maxEMIterations=20,
-            use_pallas=False,
         )
         avrec = {}
         for k_sites in (1, 3):
@@ -617,7 +610,7 @@ class TestFusedFDRSingleStrand:
         sset, bg, _ = trained
         params = Params(
             FDR=True, ss=True, cvFold=2, mFold=2, q=0.5,
-            maxEMIterations=10, use_pallas=False,
+            maxEMIterations=10,
         )
 
         def mk():
@@ -647,7 +640,7 @@ class TestFusedFDRMoreGeometries:
         bg = BackgroundModel.from_sequence_set(sset, order=0)
         params = Params(
             FDR=True, cvFold=2, mFold=2, q=0.5, maxEMIterations=8,
-            use_pallas=False, modelOrder=0,
+            modelOrder=0,
         )
 
         def mk():
@@ -685,7 +678,7 @@ class TestFusedFDRMoreGeometries:
             f_bg=sset.base_frequencies(), alphabet=alphabet,
         )
         params = Params(FDR=True, cvFold=2, mFold=2, q=0.5,
-                        maxEMIterations=5, use_pallas=False, sOrder=1)
+                        maxEMIterations=5, sOrder=1)
         res = evaluate_motifs([m], bg, sset, params)[0]
         assert np.isfinite(res.zoops["score"]).all()
         assert res.mops["score"].size > 0
@@ -726,7 +719,7 @@ class TestFusedFDRVariableLengths:
             )
 
         params = Params(FDR=True, cvFold=4, mFold=3, q=0.5,
-                        maxEMIterations=12, use_pallas=False)
+                        maxEMIterations=12)
         ref = evaluate_motif(mk(), bg, sset, params)
         new = evaluate_motifs([mk()], bg, sset, params)[0]
         for k in ("score", "tp", "fp", "precision", "recall", "pvalue"):
@@ -817,7 +810,7 @@ class TestFDRRobustness:
             )
 
         params = Params(FDR=True, cvFold=3, mFold=2, q=0.5, sOrder=1,
-                        maxEMIterations=6, use_pallas=False)
+                        maxEMIterations=6)
         ref = evaluate_motif(mk(), bg, sset, params)
         new = evaluate_motifs([mk()], bg, sset, params)[0]
         for k in ("score", "tp", "fp", "pvalue"):
@@ -836,8 +829,7 @@ class TestFDRRobustness:
         )
 
         sset, bg, _ = trained
-        params = Params(FDR=True, cvFold=2, mFold=2, q=0.5,
-                        use_pallas=False)
+        params = Params(FDR=True, cvFold=2, mFold=2, q=0.5)
 
         def mk():
             return seeds_mod.motif_from_pwm(
@@ -858,7 +850,6 @@ class TestFDRRobustness:
 
         _, bg, m = trained
         empty = SequenceSet.from_sequences([])
-        res = evaluate_motif(m, bg, empty, Params(FDR=True, cvFold=3,
-                                                  use_pallas=False))
+        res = evaluate_motif(m, bg, empty, Params(FDR=True, cvFold=3))
         assert res.pos_pvalues.size == 0
         assert res.zoops["score"].size == 0

@@ -183,7 +183,7 @@ def main() -> int:
     for name, flags, n, l in CONFIGS:
         fasta, meme = build_inputs(workdir, n, l)
         ref_out = os.path.join(workdir, f"{name}_ref")
-        our_out = os.path.join(workdir, f"{name}_tpu")
+        our_out = os.path.join(workdir, f"{name}_jax")
         os.makedirs(ref_out, exist_ok=True)
         args = [fasta, "--PWMFile", meme] + flags
         print(f"== {name}: {' '.join(args)}")
